@@ -1,4 +1,4 @@
-"""abc_tpu — a TPU-native FHE compiler and execution stack.
+"""abc_tpu — an FHE compiler and execution stack on JAX.
 
 A brand-new framework with the capabilities of the MarbleHE/ABC optimizing FHE
 compiler (reference: /root/reference): a C-like DSL with a `secret` type
@@ -6,7 +6,8 @@ qualifier is parsed into an AST IR, transformed by compiler passes
 (type/secrecy inference, secret-branch circuit lowering, compile-time
 expression simplification, loop unrolling, cone rewriting for multiplicative
 depth, automatic SIMD batching), and executed by a runtime whose FHE engine is
-JAX/Pallas RNS polynomial arithmetic on TPU instead of Microsoft SEAL on CPU.
+JAX RNS polynomial arithmetic on an NVIDIA GPU instead of Microsoft SEAL on
+the CPU.
 
 Layering (mirrors reference layer map, SURVEY.md §1):
   ast_ir   — IR core            (ref: include/ast_opt/ast/)
@@ -15,7 +16,8 @@ Layering (mirrors reference layer map, SURVEY.md §1):
   passes   — compiler passes    (ref: include/ast_opt/visitor/)
   runtime  — program execution  (ref: include/ast_opt/runtime/)
   crypto   — BFV/CKKS RNS engine (ref: external Microsoft SEAL)
-  ops      — jnp/Pallas TPU kernels (ref: SEAL's native C++ kernels)
+  ops      — modular arithmetic, the CUDA NTT kernel and the C++ host
+             engine (ref: SEAL's native C++ kernels)
   parallel — device-mesh sharding of ciphertexts (no reference equivalent)
 """
 

@@ -3,7 +3,7 @@
 Float-free RNS implementation of BFV ct·ct multiply — the same construction
 SEAL uses behind the reference's SealCiphertext::multiply
 (SealCiphertext.cpp:102-124, 99% of the reference's cycles per SURVEY.md §3.3).
-Float-free matters on TPU: no f64, and every step below is uint32 limb math.
+Float-free: every step below is exact uint32 limb math on the device.
 
 Pipeline (BEHZ16, §4):
   1. fastbconv_m_tilde : lift both ciphertexts from base q to Bsk ∪ {m̃}
@@ -55,12 +55,6 @@ class BehzContext:
 
         self.ntt_q = ntt_q or NttContext(n, qs, engine=params.engine)
         self.ntt_bsk = NttContext(n, self.bsk, engine=params.engine)
-        if params.engine == "jx32":
-            # attach the Pallas hot path now (construction happens eagerly
-            # via BfvContext.ensure_eval_ready; a first-use attach inside a
-            # multiply trace would fall back to the XLA stage loop)
-            self.ntt_q.warm()
-            self.ntt_bsk.warm()
 
         host = {}
         as_col = lambda v: np.asarray(v, dtype=np.uint32).reshape(-1, 1)
@@ -226,7 +220,7 @@ class BehzContext:
         # tensor product in NTT domain, separately per base
         # (measured: stacking both ciphertexts into one [2,2,L,n] NTT call
         # costs more in copies than the extra batch amortization saves).
-        # Explicit reuse for squaring: Pallas calls are custom-calls XLA
+        # Explicit reuse for squaring: the GPU kernel is a custom call XLA
         # will not CSE, so the dedup must happen here.
         f1q, f1b = pre1 if pre1 is not None else \
             (nq.fwd(ct1_data), nb.fwd(self._to_bsk(ct1_data)))

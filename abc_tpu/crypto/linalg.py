@@ -4,7 +4,7 @@ switching.
 
 The reference's MatrixVectorProductTest (test/end-to-end/
 MatrixVectorProductTest.cpp) evaluates the product SCALAR-wise in the DSL;
-this module is the packed TPU-native counterpart: one ciphertext holds the
+this module is the packed counterpart: one ciphertext holds the
 whole vector, and the product is
 
     y = Σ_{d=0}^{k−1} diag_d ⊙ rot(x, d)                (diagonal method)

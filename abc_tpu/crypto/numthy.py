@@ -4,7 +4,7 @@ prime generation, primitive roots, modular inverses, CRT.
 Replaces the number-theoretic machinery inside Microsoft SEAL
 (reference links against SEAL 3.6, CMakeLists.txt:211-217); nothing here is
 performance-critical — all outputs become precomputed uint32 tables shipped
-to the TPU kernels.
+to the device kernels.
 """
 
 from __future__ import annotations

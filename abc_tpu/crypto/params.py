@@ -6,7 +6,7 @@ BFV, poly_modulus_degree = slot count, CoeffModulus::BFVDefault, 20-bit
 batching plain modulus). The reference has no config system (SURVEY.md §5);
 this Params dataclass is the explicit version.
 
-Prime budget: all coefficient-modulus primes are < 2^30 so the TPU uint32
+Prime budget: all coefficient-modulus primes are < 2^30 so the device uint32
 engine (ops/modarith.jx32) applies. Total coeff-modulus bits stay within the
 HE-standard budget for each n (109/218/438 bits at n = 4096/8192/16384); the
 LAST prime in coeff_modulus is the key-switching special prime and does not
@@ -71,7 +71,7 @@ class BfvParams:
     n: int
     coeff_modulus: List[int]          # data primes + ks_digits special primes (last)
     plain_modulus: int                # t, prime ≡ 1 (mod 2n) for batching
-    engine: str = "np64"              # modarith engine: np64 (CPU) | jx32 (TPU)
+    engine: str = "np64"              # modarith engine: np64 (host) | jx32 (device)
     seed: Optional[int] = None        # deterministic keygen/encryption for tests
     error_std: float = 3.2            # discrete gaussian σ (SEAL default)
     ks_digits: int = 1                # hybrid key-switch digit size k = number

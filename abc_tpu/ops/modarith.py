@@ -7,11 +7,11 @@ SURVEY.md §7): every polynomial is a uint32 array of shape [L, n]
 Two interchangeable engines:
   * `np64` — NumPy uint64 reference: trivially correct, used as the oracle
     and for host-side precomputation.
-  * `jx32` — JAX uint32: TPU has no native 64-bit integer multiply, so the
-    64-bit products required by modular reduction are built from 16-bit limb
-    splits on the VPU (SURVEY.md §7 "hard parts" #1). General products use
-    Barrett reduction; fixed-operand products (twiddle factors) use Shoup's
-    trick with a precomputed companion word.
+  * `jx32` — JAX uint32, jit-able on the device: the 64-bit products
+    required by modular reduction are built from 16-bit limb splits in plain
+    jnp (SURVEY.md §7 "hard parts" #1). General products use Barrett
+    reduction; fixed-operand products (twiddle factors) use Shoup's trick
+    with a precomputed companion word.
 
 All jx32 routines require q < 2^30 so lazy sums stay below 2^32.
 """
@@ -93,7 +93,7 @@ def _jnp():
 
 
 class jx32:
-    """TPU engine: uint32 lanes, 16-bit-split wide multiplies."""
+    """Device engine: uint32 lanes, 16-bit-split wide multiplies."""
 
     @staticmethod
     def umulhi(a, b):
@@ -185,3 +185,10 @@ def shoup(w: int, q: int) -> int:
 
 def get_engine(name: str):
     return {"np64": np64, "jx32": jx32}[name]
+
+
+def default_engine() -> str:
+    """The engine a factory uses when none is named: jx32 on an
+    accelerator, np64 (host NumPy and the C++ engine) on the CPU."""
+    import jax
+    return "np64" if jax.default_backend() == "cpu" else "jx32"

@@ -1,10 +1,10 @@
 """Coefficient-sharded negacyclic NTT over a device mesh axis.
 
-BASELINE.json config 5 and SURVEY.md §2.6: the second TPU parallel axis for
+Config 5 and SURVEY.md §2.6: the second device-parallel axis for
 one ciphertext (beyond RNS limbs) is the polynomial COEFFICIENT axis —
 shard the degree-n polynomial into D contiguous blocks of S = n/D
 coefficients, one per device, and turn the NTT's long-stride butterfly
-stages into inter-chip exchanges over ICI.
+stages into inter-device exchanges (collective-permute).
 
 Decomposition (Cooley-Tukey forward, natural → bit-reversed order, same
 convention as crypto/ntt.py so results are BIT-IDENTICAL to the local
@@ -70,7 +70,7 @@ class DistNttContext:
         # ELEMENTWISE over the local [L, S] block, so the block splits into
         # `pipeline_chunks` independent (permute → combine) chains per
         # stage. All chunk permutes are issued before any combine, giving
-        # XLA's async collective scheduler (-start/-done separation on TPU)
+        # XLA's async collective scheduler (-start/-done separation)
         # compute to overlap each transfer with: chunk c's butterfly math
         # hides chunk c+1's ppermute, ~(nc−1)/nc of the exchange time once
         # per-chunk compute ≥ per-chunk transfer. nc=1 restores the

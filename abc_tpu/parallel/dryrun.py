@@ -3,7 +3,7 @@ sharding tests: a batched encrypted computation jitted over a 2-D
 (dp × limb) mesh.
 
 Per batched ciphertext pair: ct_sum = a ⊞ b, then rotate_rows(ct_sum, 1) with
-the key-switch decomposition contraction sharded over "limb" (psum over ICI)
+the key-switch decomposition contraction sharded over "limb" (a psum)
 while the batch is sharded over "dp". This exercises both mesh axes with real
 collectives in a single jitted shard_map program.
 """
@@ -95,7 +95,7 @@ def run_production_dryrun(n_devices: int, verbose: bool = True) -> dict:
         sharded over all devices — distributed-NTT ppermute exchanges.
 
     Returns (and prints) per-phase collective-traffic censuses from the
-    compiled HLO: table construction, VMEM/HBM footprints and psum widths
+    compiled HLO: table construction, memory footprints and psum widths
     all change at production size, so the tiny-shape dryrun alone is not
     evidence the production program compiles. CPU-mesh execution is slow
     but one step of each is enough to prove compile + execute + decrypt."""
@@ -205,7 +205,7 @@ def run_production_dryrun(n_devices: int, verbose: bool = True) -> dict:
                 "first_call_ms_incl_compile": round(bfv_first_ms, 1),
                 "collectives_per_step": bfv_coll,
                 "axis_attribution": "all-reduce = key-switch psum over "
-                                    "'limb' (ICI); 'dp' moves zero bytes"},
+                                    "'limb'; 'dp' moves zero bytes"},
         "compiled_program": {
             "workload": "hamming (full pipeline: parse->passes->"
                         "vectorize->whole-program JIT)",
@@ -233,9 +233,8 @@ def run_dryrun(n_devices: int, n: int = 256, verbose: bool = True) -> None:
     if len(devices) < n_devices:
         raise RuntimeError(
             f"dryrun needs {n_devices} devices, found {len(devices)} "
-            f"({devices[0].platform}); set "
-            "XLA_FLAGS=--xla_force_host_platform_device_count and force the "
-            "cpu platform")
+            f"({devices[0].platform}); for a virtual CPU mesh call "
+            "__graft_entry__.dryrun_multichip(n, cpu_mesh=True)")
     dp = 2 if (n_devices % 2 == 0 and n_devices >= 4) else 1
     limb = n_devices // dp
     mesh = make_mesh(dp=dp, limb=limb, devices=devices)

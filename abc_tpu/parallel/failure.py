@@ -5,7 +5,7 @@ Reference status: NONE in-library (SURVEY.md §5) — its CI uses an external
 in-library equivalents:
 
   * deadline(seconds): SIGALRM-based watchdog around a host-side block —
-    a wedged collective/tunneled dispatch raises DeadlineExceeded in the
+    a wedged collective or dispatch raises DeadlineExceeded in the
     main thread instead of hanging the job forever.
   * barrier(timeout): all-hosts rendezvous via a tiny psum across the
     global device set, guarded by deadline(); detects a dead/partitioned

@@ -1,7 +1,7 @@
 """Collective-traffic census of a compiled sharded program.
 
 The reference has no distributed backend at all (SURVEY.md §2.6 —
-"Distributed communication backend: absent"); for the TPU rebuild the
+"Distributed communication backend: absent"); for this rebuild the
 scaling story is governed by how many bytes each mesh axis moves per step.
 This module extracts that number from the OPTIMIZED HLO of a compiled
 jitted function: every all-reduce / all-gather / all-to-all /

@@ -4,7 +4,7 @@ Reference: src/runtime/SealCiphertextFactory.cpp (factory owning context +
 keys, createCiphertext/decryptCiphertext, last-element expandVector padding
 :102-115) and SealCiphertext.cpp (op dispatch; every multiply followed by
 relinearization :102-124; rotateRows via Galois keys :52-61). Here the crypto
-engine is abc_tpu.crypto (JAX/TPU) instead of SEAL (CPU).
+engine is abc_tpu.crypto (JAX on the device) instead of SEAL (CPU).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import List, Optional, Sequence, Union
 
 from abc_tpu.crypto.bfv import BfvCiphertext, BfvContext, Plaintext
 from abc_tpu.crypto.params import BfvParams
+from abc_tpu.ops.modarith import default_engine
 from abc_tpu.runtime.backend import AbstractCiphertextFactory
 from abc_tpu.runtime.values import AbstractCiphertext, Cleartext
 from abc_tpu.utils.errors import RuntimeExecutionError
@@ -29,7 +30,7 @@ def _zero_pad(data, size: int):
     return xp.concatenate([data, pad])
 
 
-class TpuBfvCiphertext(AbstractCiphertext):
+class BfvRuntimeCiphertext(AbstractCiphertext):
     """Ciphertext handle dispatching to the BFV context (pure ops).
 
     Relinearization is LAZY: multiply returns the raw size-3 BEHZ product
@@ -68,16 +69,16 @@ class TpuBfvCiphertext(AbstractCiphertext):
 
     def add(self, other):
         a, b = self._aligned(other)
-        return TpuBfvCiphertext(self._ctx().add(a, b), self.factory)
+        return BfvRuntimeCiphertext(self._ctx().add(a, b), self.factory)
 
     def subtract(self, other):
         a, b = self._aligned(other)
-        return TpuBfvCiphertext(self._ctx().sub(a, b), self.factory)
+        return BfvRuntimeCiphertext(self._ctx().sub(a, b), self.factory)
 
     def multiply(self, other):
         a = self._relin()
         b = other._relin() if other is not self else a
-        return TpuBfvCiphertext(
+        return BfvRuntimeCiphertext(
             self._ctx().multiply(a, b, relinearize=False), self.factory)
 
     # ctxt ⊕ plain
@@ -85,31 +86,31 @@ class TpuBfvCiphertext(AbstractCiphertext):
         return self.factory.encode_cleartext(cleartext)
 
     def add_plain(self, other):
-        return TpuBfvCiphertext(self._ctx().add_plain(self.ct, self._encode(other)),
+        return BfvRuntimeCiphertext(self._ctx().add_plain(self.ct, self._encode(other)),
                                 self.factory)
 
     def subtract_plain(self, other):
-        return TpuBfvCiphertext(self._ctx().sub_plain(self.ct, self._encode(other)),
+        return BfvRuntimeCiphertext(self._ctx().sub_plain(self.ct, self._encode(other)),
                                 self.factory)
 
     def subtract_from_plain(self, other):
-        return TpuBfvCiphertext(
+        return BfvRuntimeCiphertext(
             self._ctx().sub_from_plain(self.ct, self._encode(other)), self.factory)
 
     def multiply_plain(self, other):
-        return TpuBfvCiphertext(
+        return BfvRuntimeCiphertext(
             self._ctx().multiply_plain(self.ct, self._encode(other)), self.factory)
 
     def rotate_rows(self, steps: int):
-        return TpuBfvCiphertext(
+        return BfvRuntimeCiphertext(
             self._ctx().rotate_rows(self._relin(), steps), self.factory)
 
     def rotate_columns(self):
-        return TpuBfvCiphertext(
+        return BfvRuntimeCiphertext(
             self._ctx().rotate_columns(self._relin()), self.factory)
 
     def clone(self):
-        return TpuBfvCiphertext(self.ct, self.factory)  # immutable: share
+        return BfvRuntimeCiphertext(self.ct, self.factory)  # immutable: share
 
     def noise_bits(self) -> int:
         """ref: SealCiphertext::noiseBits (SealCiphertext.cpp:80-83)."""
@@ -130,8 +131,7 @@ class BfvCiphertextFactory(AbstractCiphertextFactory):
             self.params = context.params
             return
         if engine is None:
-            import jax
-            engine = "jx32" if jax.default_backend() == "tpu" else "np64"
+            engine = default_engine()
         self.params = BfvParams.create(slots, engine=engine, seed=seed,
                                        plain_bits=plain_bits)
         self.context = BfvContext(self.params)
@@ -147,10 +147,10 @@ class BfvCiphertextFactory(AbstractCiphertextFactory):
         return self.context.encode(self.expand_vector(vals))
 
     def create_ciphertext(self, value: Union[Cleartext, Sequence[int], int]
-                          ) -> TpuBfvCiphertext:
+                          ) -> BfvRuntimeCiphertext:
         return self.create_many([value])[0]
 
-    def create_many(self, values: Sequence) -> List[TpuBfvCiphertext]:
+    def create_many(self, values: Sequence) -> List[BfvRuntimeCiphertext]:
         """Encrypt a batch of inputs in one device call (BfvContext
         .encrypt_many) — used by the whole-program JIT to encrypt all
         secret inputs together."""
@@ -163,11 +163,11 @@ class BfvCiphertextFactory(AbstractCiphertextFactory):
             else:
                 vals = [int(v) for v in value]
             pts.append(self.context.encode(self.expand_vector(vals)))
-        return [TpuBfvCiphertext(ct, self)
+        return [BfvRuntimeCiphertext(ct, self)
                 for ct in self.context.encrypt_many(pts)]
 
     def decrypt(self, ciphertext: AbstractCiphertext) -> List[int]:
-        if not isinstance(ciphertext, TpuBfvCiphertext):
+        if not isinstance(ciphertext, BfvRuntimeCiphertext):
             raise RuntimeExecutionError(
                 "BfvCiphertextFactory can only decrypt its own ciphertexts")
         return self.context.decode(self.context.decrypt(ciphertext.ct))
@@ -177,5 +177,5 @@ class BfvCiphertextFactory(AbstractCiphertextFactory):
         """(traced array, static metadata) for a ciphertext handle."""
         return handle.ct.data, None
 
-    def jit_unpack(self, array, meta=None) -> TpuBfvCiphertext:
-        return TpuBfvCiphertext(BfvCiphertext(array), self)
+    def jit_unpack(self, array, meta=None) -> BfvRuntimeCiphertext:
+        return BfvRuntimeCiphertext(BfvCiphertext(array), self)

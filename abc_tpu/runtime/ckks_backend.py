@@ -14,6 +14,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 
 from abc_tpu.crypto.ckks import CkksCiphertext, CkksContext, CkksParams
+from abc_tpu.ops.modarith import default_engine
 from abc_tpu.runtime.backend import AbstractCiphertextFactory
 from abc_tpu.runtime.values import AbstractCiphertext, Cleartext
 from abc_tpu.utils.errors import RuntimeExecutionError
@@ -29,7 +30,7 @@ def _zero_pad(data, size: int):
     return xp.concatenate([data, pad])
 
 
-class TpuCkksCiphertext(AbstractCiphertext):
+class CkksRuntimeCiphertext(AbstractCiphertext):
     """Ciphertext handle with LAZY relinearization and rescale (the CKKS
     analogue of the BFV runtime's deferred key switch,
     runtime/bfv_backend.py): multiply returns the raw size-3 product at the
@@ -51,7 +52,7 @@ class TpuCkksCiphertext(AbstractCiphertext):
         return self.factory.context
 
     def _wrap(self, ct):
-        return TpuCkksCiphertext(ct, self.factory)
+        return CkksRuntimeCiphertext(ct, self.factory)
 
     def _relin(self) -> CkksCiphertext:
         """Size-2 form (deferred key switch if this is a raw product)."""
@@ -122,7 +123,7 @@ class TpuCkksCiphertext(AbstractCiphertext):
         return self._wrap(self._ctx().rotate(self._relin(), steps))
 
     def clone(self):
-        return TpuCkksCiphertext(self.ct, self.factory)
+        return CkksRuntimeCiphertext(self.ct, self.factory)
 
     @property
     def level(self) -> int:
@@ -142,7 +143,7 @@ class CkksCiphertextFactory(AbstractCiphertextFactory):
             self.params = context.params
             return
         if engine is None:
-            engine = "np64"
+            engine = default_engine()
         self.params = CkksParams.create(n, levels=levels, engine=engine,
                                         seed=seed, scale_bits=scale_bits)
         self.context = CkksContext(self.params)
@@ -160,17 +161,17 @@ class CkksCiphertextFactory(AbstractCiphertextFactory):
         return full
 
     def create_ciphertext(self, value: Union[Cleartext, Sequence, float]
-                          ) -> TpuCkksCiphertext:
+                          ) -> CkksRuntimeCiphertext:
         if isinstance(value, Cleartext):
             vals = value.values
         elif isinstance(value, (int, float)):
             vals = [value]
         else:
             vals = list(value)
-        return TpuCkksCiphertext(self._encrypt_values(vals, None), self)
+        return CkksRuntimeCiphertext(self._encrypt_values(vals, None), self)
 
     def decrypt(self, ciphertext: AbstractCiphertext) -> List[float]:
-        if not isinstance(ciphertext, TpuCkksCiphertext):
+        if not isinstance(ciphertext, CkksRuntimeCiphertext):
             raise RuntimeExecutionError(
                 "CkksCiphertextFactory can only decrypt its own ciphertexts")
         z = self.context.decode(self.context.decrypt(ciphertext.ct))
@@ -182,6 +183,6 @@ class CkksCiphertextFactory(AbstractCiphertextFactory):
         trace-time constants alongside the RNS array."""
         return handle.ct.data, (handle.ct.level, handle.ct.scale)
 
-    def jit_unpack(self, array, meta) -> TpuCkksCiphertext:
+    def jit_unpack(self, array, meta) -> CkksRuntimeCiphertext:
         level, scale = meta
-        return TpuCkksCiphertext(CkksCiphertext(array, level, scale), self)
+        return CkksRuntimeCiphertext(CkksCiphertext(array, level, scale), self)

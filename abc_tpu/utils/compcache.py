@@ -2,44 +2,40 @@
 
 The reference pays no compile cost (SEAL is ahead-of-time C++); our
 whole-program JIT path (runtime/jit_executor.py) can spend minutes in XLA
-for reference-scale programs (the n=16384 Laplace executable measured a
-99 s compile in round 2). Enabling JAX's persistent compilation cache makes
-that a once-per-machine cost instead of once-per-process: the CLI, the
-bench harness, and the benchsuite all call enable_persistent_cache() before
+for reference-scale programs. JAX's persistent compilation cache makes that
+a once-per-checkout cost instead of once-per-process: the CLI, the bench
+harness, the benchsuite and the tests call enable_persistent_cache() before
 touching the device.
 
-Cache location: $ABC_TPU_CACHE_DIR, else ~/.cache/abc_tpu/jax_cache.
+Location: where JAX_COMPILATION_CACHE_DIR points (JAX reads it itself, and
+nothing is set here), else the fixed directory .jax_cache/ beside the
+abc_tpu package. The path is part of the cache key, so it never moves.
 """
 
 from __future__ import annotations
 
 import os
 
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
 _ENABLED = False
 
 
-def enable_persistent_cache(path: str | None = None) -> str:
-    """Idempotently point JAX's persistent compilation cache at a local dir.
-
-    Returns the cache directory in use. Safe to call before or after JAX
-    initialization (the flags are readable any time before first compile;
-    later calls are no-ops)."""
+def enable_persistent_cache() -> str:
+    """Idempotently turn on JAX's persistent compilation cache; returns the
+    directory in use. Call before the first compile."""
     global _ENABLED
-    import jax
-
-    cache_dir = (path or os.environ.get("ABC_TPU_CACHE_DIR")
-                 or os.path.join(os.path.expanduser("~"), ".cache",
-                                 "abc_tpu", "jax_cache"))
+    env_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env_dir:
+        return env_dir
     if _ENABLED:
-        return cache_dir
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    # Keep a small compile-time floor so thousands of trivial test/bench
-    # executables don't grow the (eviction-free) cache without bound; the
-    # executables worth persisting all compile in seconds-to-minutes.
-    # ABC_TPU_CACHE_MIN_COMPILE_SECS=0 restores cache-everything.
-    min_secs = float(os.environ.get("ABC_TPU_CACHE_MIN_COMPILE_SECS", "1.0"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", min_secs)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+        return DEFAULT_DIR
+    import jax
+    os.makedirs(DEFAULT_DIR, exist_ok=True)
+    # JAX's own floor (jax_persistent_cache_min_compile_time_secs, 1 s)
+    # keeps the thousands of trivial test executables out of the cache
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
     _ENABLED = True
-    return cache_dir
+    return DEFAULT_DIR

@@ -129,7 +129,7 @@ class ProfilingFactory(AbstractCiphertextFactory):
 
 @contextmanager
 def device_trace(logdir: str):
-    """jax.profiler trace around a block: XLA/TPU timeline written to
+    """jax.profiler trace around a block: XLA device timeline written to
     `logdir` (view with TensorBoard or xprof). The FHE analogue of the
     training-loop profiler; complements the host-side PhaseTimer.
 

@@ -1,5 +1,5 @@
 // Native CPU engine for RNS polynomial arithmetic — the C++ counterpart of
-// the TPU kernels, filling the role Microsoft SEAL plays in the reference
+// the device kernels, filling the role Microsoft SEAL plays in the reference
 // (the reference links SEAL as its only native crypto engine,
 // CMakeLists.txt:211-217). Used by the Python stack (via ctypes) for
 // host-side keygen/encrypt/decrypt work at large n, and as a third

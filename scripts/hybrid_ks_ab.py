@@ -12,7 +12,7 @@ Note: k=2 at n=8192 uses 8 30-bit moduli = 240 bits > the 218-bit
 HE-standard budget (dev-grade measurement of the KERNEL-shape question;
 a production k=2 chain would drop one data limb).
 
-    python scripts/hybrid_ks_ab.py          # TPU
+    python scripts/hybrid_ks_ab.py          # the default device
     python scripts/hybrid_ks_ab.py cpu      # CPU sanity
 """
 

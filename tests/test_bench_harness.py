@@ -1,9 +1,9 @@
 """bench.py harness plumbing — the driver-facing artifact format.
 
-The device measurements themselves run on real TPU (bench.py); these tests
-pin the parts that broke in earlier rounds: worker-template syntax, the
-compact-line digest (round-2's BENCH artifact was unparseable from line
-overflow; round-3's truncated config4's unit), and the suite registry.
+The device measurements themselves run on the GPU (bench.py); these tests
+pin worker-template syntax, the compact-line digest (a line that overflows
+the driver's capture is unparseable; a unit must not be truncated), the
+suite registry, and that any failed phase is a non-zero exit.
 """
 
 import ast
@@ -38,16 +38,18 @@ def test_compact_line_fits_driver_capture():
     """A representative compact line must stay under the 1500-char guard
     bench.py enforces (the driver tails stdout)."""
     line = {
-        "metric": "rns_ntt_butterflies_per_s_chip_n16384_L14 (tpu)",
-        "value": 55.151, "unit": "Gbutterflies/s", "vs_baseline": 275.76,
-        "spread": [54.24, 56.83], "pct_sol": 57.3,
+        "metric": "rns_ntt_butterflies_per_s_n16384_L14",
+        "value": 55.151123456789, "unit": "Gbutterflies/s",
+        "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3",
+                   "count": 1},
+        "spread": [54.24123456789, 56.83123456789],
         "ntt_Gbf_s_by_batch": {str(b): 60.0 for b in (1, 8, 16, 64)},
         "mult_relin_ops_s_by_batch": {str(b): 4000.0
                                       for b in (1, 8, 16, 64)},
         "suite": bench._compact_suite(
             {f"config{i}": {"value": 1.0, "unit": "ops/s"}
              for i in range(1, 7)}),
-        "full": "bench_suite.json",
+        "full": "build/bench_suite.json",
     }
     assert len(json.dumps(line)) < 1500
 
@@ -58,18 +60,72 @@ def test_suite_registry_covers_six_configs():
 
 
 def test_mult_relin_sol_model():
-    """The speed-of-light model must price the census against the same
-    run's measured NTT row cost and report an auditable floor."""
+    """The mult+relin census passes through platform-free: NTT rows and
+    elementwise u32 ops of one multiply, priced against no peak rate."""
     result = {
         "mult_relin_census": {"ntt_rows": 154, "elem_ops": 142_843_904},
-        "ntt_curve": {"1": {"us_per_fwd": 29.17}},
-        "ntt_rows": 14,
+        "mult_relin_curve": {"1": {"ops_per_s": 3631.0}},
     }
-    sol = bench._mult_relin_sol(result, {"ops_per_s": 3631.0})
-    assert sol["ntt_rows"] == 154
-    # floor must be faster than measured but the same order of magnitude
-    assert sol["floor_ops_per_s"] > 3631.0
-    assert sol["floor_ops_per_s"] < 36310.0
-    assert 0 < sol["pct_sol"] < 100
+    census = bench._mult_relin_census(result)
+    assert census == {"ntt_rows": 154, "elem_u32_ops": 142_843_904,
+                      "ntt_rows_per_s": 154 * 3631.0}
     # missing census → explicit error, not a crash
-    assert "error" in bench._mult_relin_sol({}, {"ops_per_s": 1.0})
+    assert "error" in bench._mult_relin_census({})
+
+
+_CURVES = {
+    "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3",
+               "count": 1},
+    "timing_protocol": "median of 5 two-point chain estimates",
+    "ntt_curve": {"1": {"Gbf_s": 1.0, "Gbf_s_min": 0.9, "Gbf_s_max": 1.1,
+                        "us_per_fwd": 1.0, "fixed_call_ms": 0.1}},
+    "mult_relin_curve": {"1": {"ops_per_s": 10.0}},
+    "ntt_rows": 14,
+    "mult_relin_census": {"ntt_rows": 154, "elem_ops": 1},
+}
+
+
+def _fake_workers(monkeypatch, curves, suite):
+    results = iter([curves, suite])
+    monkeypatch.setattr(bench, "_run_worker", lambda code, timeout:
+                        next(results))
+
+
+def test_bench_fails_when_the_device_worker_fails(monkeypatch, capsys):
+    _fake_workers(monkeypatch, "exit 1: no accelerator", None)
+    assert bench.main([]) == 1
+    assert "curves worker failed" in capsys.readouterr().err
+
+
+def test_bench_fails_when_a_suite_config_fails(monkeypatch, tmp_path,
+                                               capsys):
+    suite = {"config1": {"metric": "m", "value": 1.0, "unit": "ms"},
+             "config5": {"metric": "config5 (failed)", "value": 0.0,
+                         "unit": "-", "error": "boom"}}
+    _fake_workers(monkeypatch, _CURVES, suite)
+    assert bench.main(["--out", str(tmp_path / "b.json")]) == 1
+    out = capsys.readouterr()
+    assert "config5" in out.err
+    assert json.loads(out.out.splitlines()[-1])["failed"] == ["config5"]
+
+
+def test_bench_passes_and_names_the_device(monkeypatch, tmp_path, capsys):
+    suite = {"config1": {"metric": "m", "value": 1.0, "unit": "ms"},
+             "device": _CURVES["device"]}
+    _fake_workers(monkeypatch, _CURVES, suite)
+    assert bench.main(["--out", str(tmp_path / "b.json")]) == 0
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["device"] == _CURVES["device"]
+    assert list(line["suite"]) == ["config1"]
+    full = json.loads((tmp_path / "b.json").read_text())
+    assert full["device"]["platform"] == "gpu"
+
+
+def test_suite_mode_exit_code_reflects_failures(monkeypatch):
+    from abc_tpu import benchsuite
+    monkeypatch.setattr(benchsuite, "run_suite_dict", lambda configs:
+                        {"config1": {"value": 1.0}})
+    assert bench.main(["--suite", "1"]) == 0
+    monkeypatch.setattr(benchsuite, "run_suite_dict", lambda configs:
+                        {"config1": {"error": "x"}})
+    assert bench.main(["--suite", "1"]) == 1

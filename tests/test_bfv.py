@@ -186,8 +186,8 @@ def test_noise_budget_decreases_monotonically(ctx):
 
 def test_jx32_engine_bit_exact_full_pipeline():
     """Same seed → identical keys; every homomorphic op must produce
-    bit-identical ciphertexts on the np64 (CPU oracle) and jx32 (TPU uint32)
-    engines."""
+    bit-identical ciphertexts on the np64 (CPU oracle) and jx32 (device
+    uint32) engines."""
     import numpy as np
     c_np = BfvContext(BfvParams.create(1024, seed=7, engine="np64"))
     c_jx = BfvContext(BfvParams.create(1024, seed=7, engine="jx32"))

@@ -7,7 +7,7 @@
    never reached. ALL-ON vs ALL-OFF on the dummy backend.
 2. WHOLE-PROGRAM JIT — the same seeded program families run through
    JittedProgram (jx32 engine) and asserted equal to the tree-walking
-   executor; previously the stack's central TPU-native path was exercised
+   executor; previously the stack's central device path was exercised
    only by hand-written cases.
 3. CKKS — random approximate-arithmetic programs (depth-capped), decrypted
    output vs a numpy float oracle; exercises the round-5 automatic

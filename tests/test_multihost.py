@@ -1,10 +1,9 @@
 """Multi-host (multi-process) distributed execution tests.
 
 The reference has no distributed backend (SURVEY.md §2.6 row "Distributed
-communication backend: absent"); BASELINE.json's north star demands the
-N-host path. These tests spawn REAL separate processes with
+communication backend: absent"). These tests spawn REAL separate processes with
 jax.distributed.initialize + Gloo cross-process collectives — the same
-code path a TPU pod uses over DCN — and verify bit-exact decryption of
+multi-process code path — and verify bit-exact decryption of
 every output shard on every host, for both production mesh layouts
 (batch-over-DCN and key-switch-limb-over-DCN) plus the coefficient-sharded
 CKKS multiply whose distributed-NTT ppermutes cross the process boundary.

@@ -1,4 +1,4 @@
-"""NTT + modular-arithmetic kernel tests: bit-exactness of the jx32 (TPU
+"""NTT + modular-arithmetic kernel tests: bit-exactness of the jx32 (device
 uint32) engine against the np64 reference, round trips, and the evaluation
 -order convention that the batch encoder relies on."""
 

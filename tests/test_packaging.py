@@ -18,11 +18,26 @@ def test_pyproject_declares_package_and_script():
         cfg = tomllib.load(f)
     assert cfg["project"]["name"] == "abc-tpu"
     assert cfg["project"]["scripts"]["abc-tpu"] == "abc_tpu.cli:main"
-    # the native engine source ships as package data (built on first use)
-    assert "_native_src/modpoly.cpp" in \
-        cfg["tool"]["setuptools"]["package-data"]["abc_tpu"]
-    assert os.path.exists(
-        os.path.join(REPO, "abc_tpu", "_native_src", "modpoly.cpp"))
+    # the native sources ship as package data (built on first use)
+    data = cfg["tool"]["setuptools"]["package-data"]["abc_tpu"]
+    for src in ("modpoly.cpp", "ntt_cuda.cu"):
+        assert f"_native_src/{src}" in data
+        assert os.path.exists(os.path.join(REPO, "abc_tpu", "_native_src",
+                                           src))
+
+
+def test_no_build_artifact_is_tracked():
+    """Everything compiled is built from tracked sources; .gitignore lists
+    the outputs and the compile cache."""
+    r = subprocess.run(["git", "ls-files"], cwd=REPO, capture_output=True,
+                       text=True)
+    if r.returncode != 0:
+        pytest.skip("not a git checkout")
+    tracked = r.stdout.split()
+    assert not [f for f in tracked if f.endswith((".so", ".o"))]
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        ignored = f.read().split()
+    assert {"build/", ".jax_cache/", "native/libmodpoly.so"} <= set(ignored)
 
 
 def test_console_entry_point_resolves():
@@ -48,8 +63,10 @@ def test_pip_install_into_clean_target(tmp_path):
     env["PYTHONPATH"] = str(target)
     probe = (
         "import os, abc_tpu, abc_tpu.cli, abc_tpu.ops.native as nat\n"
+        "import abc_tpu.ops.cuda_ntt as cu\n"
         f"assert abc_tpu.__file__.startswith(r'{target}'), abc_tpu.__file__\n"
         "assert os.path.exists(nat._SRC), nat._SRC\n"
+        "assert os.path.exists(cu.SRC), cu.SRC\n"
         "print('ok')\n")
     r2 = subprocess.run([sys.executable, "-c", probe],
                         capture_output=True, text=True, timeout=120,
